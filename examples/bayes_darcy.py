@@ -16,7 +16,7 @@ Pipeline (docs/mcmc.md):
 4. telescoped posterior mean + across-chain CLT error, ESS/R-hat
    diagnostics and coupling quality per level.
 
-Run: python examples/bayes_darcy.py  (a few minutes on CPU; seconds on TPU)
+Run: python examples/bayes_darcy.py  (a few minutes on CPU)
 """
 import numpy as np
 import jax.numpy as jnp

@@ -1,11 +1,11 @@
-"""The flagship TPU-first workflow: storage-free adaptive MLMC to a PDF.
+"""The flagship device workflow: storage-free adaptive MLMC to a PDF.
 
 No sample ever touches storage: each adaptive round streams new samples
 through the fused on-device estimator (continuing each level's PRNG stream),
 the allocator sizes levels by measured cost, and the maxent PDF comes
 straight from the accumulated moment/covariance state.
 
-Run:          python examples/fused_pipeline.py           (real TPU)
+Run:          python examples/fused_pipeline.py           (GPU)
 CPU mesh:     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
               python examples/fused_pipeline.py
 """

@@ -8,7 +8,7 @@ the diffusion family, each validated against an exact anchor.
    in the terminal law); call vs the COS characteristic-function price,
    Asian payoff telescoped over MONITORING frequency.
 3. **rBergomi rough volatility** — exact joint-Gaussian grids by one
-   MXU matmul; the eta -> 0 limit is Black-Scholes exactly; Sobol'
+   matmul; the eta -> 0 limit is Black-Scholes exactly; Sobol'
    points through the joint-PCA map cut the variance further.
 4. **Reaction network (dimerization CTMC)** — Anderson-Higham coupled
    tau-leaping cross-validated against batched exact Gillespie SSA.

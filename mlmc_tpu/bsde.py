@@ -39,8 +39,8 @@ by polynomial regression on X_i, upgraded in three measured ways:
 At date 0 the state is deterministic, so plain means replace the
 regressions and ``(Y_0, Z_0)`` come with CLT standard errors.
 
-TPU-first: the whole backward pass is one jitted scan (per date: one
-basis Vandermonde, two blocked [K, K] MXU normal-equation solves
+Device-first: the whole backward pass is one jitted scan (per date: one
+basis Vandermonde, two blocked [K, K] normal-equation solves
 shared by BOTH regression targets, the Picard sweep as a tiny
 unrolled loop); the regressions reuse the f32-hardened machinery of
 sim/american.py (bounded accumulation windows, Jacobi-equilibrated

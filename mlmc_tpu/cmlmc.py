@@ -18,7 +18,7 @@ the chosen L is the Richardson-style extrapolation
 ``|Y_L| / (r_h^alpha - 1)`` of the fitted geometric decay (the same
 identity estimator.richardson_extrapolation uses).
 
-TPU-first design: one masked-chunk executable per level with a DYNAMIC
+Device-first design: one masked-chunk executable per level with a DYNAMIC
 trip count and Kahan-compensated accumulators — the sample-count
 operand changes per stage but the compiled program never does (the
 fused_driver/unbiased discipline); sample identity is (level, position)

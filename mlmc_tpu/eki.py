@@ -25,9 +25,9 @@ Implemented:
   approximation (the schedule mixes models), validated empirically
   against the fine-only run.
 
-TPU-first design: the ensemble IS the batch. One jitted ``lax.scan``
+Device-first design: the ensemble IS the batch. One jitted ``lax.scan``
 over assimilation steps; each step is ``vmap(forward)`` over the [J, d]
-ensemble plus pure MXU linear algebra — anomaly matmuls for the
+ensemble plus pure dense linear algebra — anomaly matmuls for the
 cross-covariances and a Cholesky solve in observation space (K x K,
 K = #observations, small). No adjoints, no per-particle control flow.
 """

@@ -25,7 +25,7 @@ maximized for model-parameter estimation, exact for linear-Gaussian
 models as J -> inf (validated against the closed-form Kalman filter,
 :func:`kalman_filter`).
 
-TPU-first design: the ensemble IS the device batch and the WHOLE
+Device-first design: the ensemble IS the device batch and the WHOLE
 filter pass is ONE jitted ``lax.scan`` over time — per step a batched
 model propagation, two anomaly matmuls and a small (K x K or J x J)
 solve; nothing crosses to the host until the trajectory statistics are

@@ -14,8 +14,8 @@ framework's identity: Kennedy & O'Hagan's autoregressive cokriging
 so a handful of fine-model runs plus many coarse runs give a
 fine-accuracy emulator — the surrogate analogue of the MLMC telescope.
 
-TPU-first design: the fit is one jitted Cholesky of the [n, n] kernel
-matrix (MXU pairwise-distance expansion and triangular solves);
+Device-first design: the fit is one jitted Cholesky of the [n, n] kernel
+matrix (matmul pairwise-distance expansion and triangular solves);
 hyperparameters (ARD log lengthscales, signal, noise unless fixed, a
 constant mean, and the autoregressive rho at coupled levels — rho is
 just the coefficient of a known offset regressor, so it rides the SAME
@@ -43,7 +43,7 @@ __all__ = ["GP", "MultilevelGP", "bayes_opt", "rbf_kernel",
 
 def _sqdist(a, b, inv_ls):
     """Scaled pairwise squared distances: a [n, d], b [m, d] -> [n, m]
-    via the MXU-friendly |a|^2 + |b|^2 - 2 a.b expansion."""
+    via the matmul-friendly |a|^2 + |b|^2 - 2 a.b expansion."""
     a = a * inv_ls[None, :]
     b = b * inv_ls[None, :]
     d2 = (jnp.sum(a * a, 1)[:, None] + jnp.sum(b * b, 1)[None, :]

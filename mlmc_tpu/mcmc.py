@@ -55,11 +55,11 @@ Building blocks:
   estimated by one coupled chain, each expectation under ITS OWN level
   posterior (the coarse terms cancel exactly across levels).
 
-TPU-first design:
+Device-first design:
 
 * ``n_chains`` chains advance in lockstep inside ONE jitted ``lax.scan``;
   every forward model evaluates as a [B, ...] batch (vmap), so the PDE
-  solves arrive at the MXU/VPU in blocks and accept/reject is a
+  solves arrive at the device in blocks and accept/reject is a
   ``jnp.where`` mask — no per-chain control flow, no Python loop.
 * the chain batch doubles as the CLT engine: independent chains give an
   autocorrelation-free across-chain standard error (ESS / split-R-hat
@@ -508,7 +508,7 @@ def run_unbiased(loglik_qoi: Callable, d: int, k: int = 50,
 
     satisfies ``E[H] = E[Q | data]`` EXACTLY — no burn-in bias at ANY
     k, so estimation parallelizes across pairs instead of along one
-    long chain (the TPU trade: ``n_pairs`` iid replicates advance in
+    long chain (the device trade: ``n_pairs`` iid replicates advance in
     one jitted scan, and the across-pair CLT standard error is honest
     without any autocorrelation correction). Post-meeting correction
     terms vanish identically (glued chains), so the fixed-length scan

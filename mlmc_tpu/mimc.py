@@ -17,7 +17,7 @@ total-degree index set recovers the optimal O(eps^-2) complexity where
 single-axis MLMC (refining all axes together) degrades — sparse grids'
 economics applied to sampling.
 
-TPU-first design (mirrors MLQMC's streaming economics):
+Device-first design (mirrors MLQMC's streaming economics):
 
 * one compiled program per index evaluates ALL active corners of the
   mixed difference on a shared key chunk (same keys => same random
@@ -574,7 +574,7 @@ def darcy_mimc_value_fn(sigma=1.0, corr_length=0.3, n_modes=128,
     anisotropic solution features (e.g. a short correlation length in
     one direction) stop forcing the tensor grid.
 
-    TPU-first: per index one jitted program builds the lognormal RFF
+    Device-first: per index one jitted program builds the lognormal RFF
     conductivity at the CELL CENTERS of the ``(n0_x 2^a0) x (n0_y 2^a1)``
     grid (fixed modes + key-derived phases — the SAME key reproduces
     the same continuum realization at every resolution: the MIMC
@@ -582,11 +582,11 @@ def darcy_mimc_value_fn(sigma=1.0, corr_length=0.3, n_modes=128,
     face conductivities (Dirichlet via half-cell boundary faces), and
     solves by Jacobi-preconditioned matrix-free CG
     (jax.scipy.sparse.linalg.cg) vmapped over the sample batch — all
-    stencil work is VPU-friendly [B, nx, ny] elementwise math.
+    stencil work is elementwise [B, nx, ny] elementwise math.
 
     ``cg_tol`` must sit far below the mixed-difference magnitudes
     (~1e-4 and falling at product rate): the default 1e-10 needs f64
-    (tests); on-f32 TPU pass ``cg_tol=1e-6`` and treat deep indices as
+    (tests); in float32 pass ``cg_tol=1e-6`` and treat deep indices as
     solver-noise-limited.
 
     :param n0: base grid (n_x, n_y) at alpha = (0, 0); axis i refines

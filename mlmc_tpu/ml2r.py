@@ -22,7 +22,7 @@ hierarchy reaches accuracies the unweighted telescope needs many more
 up the factors ``W_l^2`` (W_0 = 1 always; deeper weights approach 1
 from above), so the CLT allocation simply uses ``W_l^2 V_l``.
 
-TPU-first design: reuses the one-executable-per-level Kahan-compensated
+Device-first design: reuses the one-executable-per-level Kahan-compensated
 streaming programs of the continuation driver (mlmc_tpu/cmlmc.py) — a
 dynamic trip count per level, sample identity (level, position) ->
 fold_in, two scalars + a count crossing the link per extension. The

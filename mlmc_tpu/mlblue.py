@@ -19,7 +19,7 @@ means — MLMC's telescope and MFMC's control variates are particular
 ``Var = [Psi^{-1}]_00`` is available in closed form for any
 allocation, which makes sample allocation a small convex program.
 
-TPU-first design: each group is ONE dynamic-trip-count executable
+Device-first design: each group is ONE dynamic-trip-count executable
 (Kahan-compensated sums of every member model and their cross
 products on shared keys — the within-group coupling), the pilot is
 the all-models group; the tiny M x M algebra (GLS solve, allocation

@@ -1,4 +1,4 @@
-"""Generalized moment-function bases, TPU-native.
+"""Generalized moment-function bases, device-native.
 
 Re-design of the reference moment layer (``/root/reference/mlmc/moments.py:6-274``)
 as pure-functional JAX evaluators:
@@ -6,7 +6,7 @@ as pure-functional JAX evaluators:
 * every basis evaluates a whole sample batch at once (``eval_all`` is a
   traced jnp function usable under ``jit``/``vmap``/``pjit``),
 * the Vandermonde construction is expressed so XLA can fuse it into the
-  downstream moment/covariance matmuls (MXU),
+  downstream moment/covariance matmuls,
 * ``safe_eval`` outlier clipping produces NaN lanes (masked later by the
   estimators) instead of numpy masked arrays,
 * ``TransformedMoments`` composes as a single matrix multiply.
@@ -177,6 +177,12 @@ class Moments:
         raise NotImplementedError
 
 
+def _matmul(a, b):
+    """Basis transform product at full precision: a float32 matmul may
+    otherwise run in TF32 (10-bit mantissa) on the GPU."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _atleast_1d(value):
     value = jnp.asarray(value)
     if value.ndim == 0:
@@ -211,6 +217,23 @@ def polyvander(x, deg):
     for _ in range(deg):
         cols.append(cols[-1] * x)
     return jnp.stack(cols, axis=-1)
+
+
+def fourier_vander(t, size):
+    """Fourier Vandermonde [..., size]: 1, then cos kt at odd and sin kt
+    at even columns (reference moments.py:145-162 order)."""
+    t = jnp.asarray(t)
+    R = size // 2
+    shorter_sin = 1 - size % 2
+    k = jnp.arange(1, R + 1, dtype=t.dtype)
+    kx = t[..., None] * k  # [..., R]
+    out = jnp.empty(t.shape + (size,), dtype=t.dtype)
+    # t*0 + 1 keeps the NaN-poisoning invariant for clipped inputs even
+    # when size == 1 and no sin/cos column exists to carry the NaN
+    out = out.at[..., 0].set(t * 0.0 + 1.0)
+    out = out.at[..., 1::2].set(jnp.cos(kx))
+    out = out.at[..., 2::2].set(jnp.sin(kx[..., : R - shorter_sin]))
+    return out
 
 
 def legendre_diff_mat(size):
@@ -256,18 +279,7 @@ class Fourier(Moments):
         super().__init__(size, domain, log=log, safe_eval=safe_eval)
 
     def _eval_ref(self, t, size):
-        R = size // 2
-        shorter_sin = 1 - size % 2
-        k = jnp.arange(1, R + 1, dtype=t.dtype)
-        kx = t[..., None] * k  # [..., R]
-        # interleave to the reference order: 1, cos kx at odd, sin kx at even
-        out = jnp.empty(t.shape + (size,), dtype=t.dtype)
-        # t*0 + 1 keeps the NaN-poisoning invariant for clipped inputs even
-        # when size == 1 and no sin/cos column exists to carry the NaN
-        out = out.at[..., 0].set(t * 0.0 + 1.0)
-        out = out.at[..., 1::2].set(jnp.cos(kx))
-        out = out.at[..., 2::2].set(jnp.sin(kx[..., : R - shorter_sin]))
-        return out
+        return fourier_vander(t, size)
 
     def _eval_ref_np(self, t, size):
         R = size // 2
@@ -319,17 +331,19 @@ class Legendre(Moments):
         t = self.transform(_atleast_1d(value))
         vander = legvander(t, size - 1)
         dmat = np.linalg.matrix_power(legendre_diff_mat(size), degree)
-        return vander @ jnp.asarray(dmat, dtype=vander.dtype)
+        return _matmul(vander, jnp.asarray(dmat, dtype=vander.dtype))
 
     def _eval_diff(self, value, size):
         t = self.transform(_atleast_1d(value))
         vander = legvander(t, size - 1)
-        return vander @ jnp.asarray(self.diff_mat[:size, :size], dtype=vander.dtype)
+        return _matmul(vander, jnp.asarray(self.diff_mat[:size, :size],
+                                           dtype=vander.dtype))
 
     def _eval_diff2(self, value, size):
         t = self.transform(_atleast_1d(value))
         vander = legvander(t, size - 1)
-        return vander @ jnp.asarray(self.diff2_mat[:size, :size], dtype=vander.dtype)
+        return _matmul(vander, jnp.asarray(self.diff2_mat[:size, :size],
+                                           dtype=vander.dtype))
 
 
 class TransformedMoments(Moments):
@@ -355,8 +369,8 @@ class TransformedMoments(Moments):
         return hash((type(self).__name__, self.size, hash(self._origin)))
 
     def _apply(self, orig):
-        mat = jnp.asarray(self._transform_mat.T, dtype=orig.dtype)
-        return orig @ mat
+        return _matmul(orig, jnp.asarray(self._transform_mat.T,
+                                         dtype=orig.dtype))
 
     def _eval_ref(self, t, size):
         orig = self._origin._eval_ref(t, self._origin.size)

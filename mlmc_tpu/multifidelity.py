@@ -23,11 +23,11 @@ over allocations AND over model subsets (ibid. Thm. 3.4), reducing MC
 variance by ~ ``(1 - rho_1^2)``-type factors when cheap well-correlated
 surrogates exist.
 
-TPU-first design:
+Device-first design:
 
 * the pilot evaluates ALL models on one shared key chunk inside a single
   jitted chunk loop and reduces the full ``[K+1, K+1]`` cross-moment
-  matrix on device (one MXU ``V V^T`` per chunk, one flat fetch total) —
+  matrix on device (one ``V V^T`` per chunk, one flat fetch total) —
   correlations, variances and the allocation follow on the host at
   ``O(K^2)``,
 * the main stage gives each model ONE compiled interval executable

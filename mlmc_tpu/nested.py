@@ -36,7 +36,7 @@ contract, so every Delta-driver in the package applies unchanged:
   boundary-bias surrogate,
 * both mesh-shard via their ``mesh=`` options.
 
-TPU-first: the [C, N_l] inner block evaluates inside the driver's
+Device-first: the [C, N_l] inner block evaluates inside the driver's
 chunk-loop executable (pure vmapped work, one executable per level);
 above ``block`` inner draws the level function accumulates half-sums
 over static-size blocks instead of materializing [C, N_l], bounding

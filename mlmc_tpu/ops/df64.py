@@ -1,9 +1,9 @@
-"""Double-float (two-f32) arithmetic for f32-only accelerators.
+"""Double-float (two-f32) arithmetic.
 
 A double-float ("df") number is an unevaluated pair of f32s ``(hi, lo)``
 with ``hi = fl(hi + lo)``, carrying ~49 significant bits — enough to track
-an all-f64 host computation to ~1e-14 relative per operation on hardware
-whose widest native float is f32 (TPU VPU).
+an all-f64 computation to ~1e-14 relative per operation while every
+operation stays float32.
 
 This module is the shared primitive layer:
 
@@ -14,20 +14,18 @@ This module is the shared primitive layer:
   exact-f32-operand shortcuts), accurate to ~2^-48 relative,
 * pairwise-halving reductions and dot products along an axis,
 * ``df_exp``: range-reduced Taylor evaluation in df arithmetic with an
-  EXACT power-of-two rescale (bit-constructed, no transcedental ``exp2``
-  — TPU approximates transcendentals), ~1e-13 relative over |x| <= 80,
+  EXACT power-of-two rescale (bit-constructed, no transcendental
+  ``exp2``), ~1e-13 relative over |x| <= 80,
 * host-side f64 <-> df conversion helpers.
 
-Everything is plain jnp and runs identically under jit on CPU/TPU and
-inside Pallas kernel bodies (``ops/pallas_extended.py`` imports its EFTs
-from here). Division is safe on hardware with approximate dividers: the
-quotient is refined from an exactly-computed remainder.
+Everything is plain jnp and runs identically under jit on every backend.
+Division is safe on hardware with approximate dividers: the quotient is
+refined from an exactly-computed remainder.
 
-Used by the extended-precision estimation tier (ops/pallas_extended.py)
-and the on-device maxent Newton solver (tool/simple_distribution.py) —
-the pieces that track the reference's all-f64 numpy pipeline
-(reference mlmc/quantity/quantity_estimate.py:64-77,
-mlmc/tool/simple_distribution.py:259-327) on f32 hardware.
+The library uses ``two_sum`` for the compensated float32 sums of the QMC
+and sensitivity drivers (qmc.py, sensitivity.py); the df ring, reductions,
+``df_exp`` and ``df_sincos`` are tested building blocks with no caller in
+the estimation path.
 """
 import math
 
@@ -61,12 +59,6 @@ import jax.numpy as jnp
 # Every other step is adds/subs of already-pinned values (contraction
 # needs a mul operand) or an error-magnitude term where a sharper FMA
 # is harmless.
-#
-# Pallas/Mosaic has no reduce_precision lowering, and the Mosaic-compiled
-# kernels are validated on real TPU hardware without it — kernel code
-# imports the ``raw`` flavor instead (ops/pallas_extended.py), and its
-# interpret mode (which compiles through XLA:CPU and IS affected) selects
-# the snapped flavor.
 # ------------------------------------------------------------------ #
 def _snap(x):
     """Identity on every f32 value, opaque to XLA (see note above)."""
@@ -75,7 +67,7 @@ def _snap(x):
 
 def _build_eft(snap):
     """Build the EFT + df ring namespace with ``snap`` pinning the
-    EFT-critical intermediates (identity fn for the raw flavor)."""
+    EFT-critical intermediates."""
 
     def two_sum(a, b):
         """Exact addition: fl(a+b) plus its rounding error (Knuth)."""
@@ -152,8 +144,6 @@ def _build_eft(snap):
         df_div=df_div)
 
 
-#: raw flavor: no snapping — for Pallas/Mosaic kernel bodies only
-raw = _build_eft(lambda x: x)
 _default = _build_eft(_snap)
 
 two_sum = _default.two_sum
@@ -242,7 +232,7 @@ _EXP_COEFS = [
 
 def _exact_pow2(k):
     """2^k for integer-valued f32 k in [-126, 127], constructed from the
-    exponent bits (TPU's exp2 is an approximation; this is exact)."""
+    exponent bits (a backend's exp2 may approximate; this is exact)."""
     ki = k.astype(jnp.int32)
     return jax.lax.bitcast_convert_type((ki + 127) << 23, jnp.float32)
 
@@ -310,45 +300,40 @@ _COS_COEFS = _df_coef_table(
     [(-1.0) ** n / math.factorial(2 * n) for n in range(9, -1, -1)])
 
 
-def _df_horner_x2(coefs, x2_hi, x2_lo, eft=None):
-    eft = eft or _default
+def _df_horner_x2(coefs, x2_hi, x2_lo):
     acc_hi = jnp.full_like(x2_hi, jnp.float32(coefs[0][0]))
     acc_lo = jnp.full_like(x2_hi, jnp.float32(coefs[0][1]))
     for c_hi, c_lo in coefs[1:]:
-        acc_hi, acc_lo = eft.df_mul(acc_hi, acc_lo, x2_hi, x2_lo)
-        acc_hi, acc_lo = eft.df_add(acc_hi, acc_lo,
-                                    jnp.full_like(x2_hi, jnp.float32(c_hi)),
-                                    jnp.full_like(x2_hi, jnp.float32(c_lo)))
+        acc_hi, acc_lo = df_mul(acc_hi, acc_lo, x2_hi, x2_lo)
+        acc_hi, acc_lo = df_add(acc_hi, acc_lo,
+                                jnp.full_like(x2_hi, jnp.float32(c_hi)),
+                                jnp.full_like(x2_hi, jnp.float32(c_lo)))
     return acc_hi, acc_lo
 
 
-def df_sincos(hi, lo, eft=None):
+def df_sincos(hi, lo):
     """(sin, cos) of a df argument to ~2^-44 relative, |x| <= ~1e4.
 
     Triple-limb pi/2 range reduction (the quadrant count k stays exactly
     representable and both two_prods are exact; the third limb rides as a
     plain product, error O(k * 2^-72)), degree-17/18 df Taylor on
     |r| <= pi/4, quadrant swap by k mod 4. Uses only mul/add/round/where
-    — safe inside Pallas kernel bodies and on hardware whose libm
-    transcendentals are NOT correctly rounded (TPU).
-
-    ``eft`` selects the EFT flavor (default = snapped; Pallas/Mosaic
-    kernel bodies pass ``df64.raw``).
+    — independent of whether a backend's transcendentals are correctly
+    rounded.
 
     :return: ((sin_hi, sin_lo), (cos_hi, cos_lo))
     """
-    eft = eft or _default
     k = jnp.round(hi * jnp.float32(_INV_PI2))
-    p1, e1 = eft.two_prod(k, jnp.float32(_PI2_A))
-    p2, e2 = eft.two_prod(k, jnp.float32(_PI2_B))
-    r_hi, r_lo = eft.df_add(hi, lo, -p1, -e1)
-    r_hi, r_lo = eft.df_add(r_hi, r_lo, -p2, -e2)
-    r_hi, r_lo = eft.fast_two_sum(r_hi, r_lo - k * jnp.float32(_PI2_C))
+    p1, e1 = two_prod(k, jnp.float32(_PI2_A))
+    p2, e2 = two_prod(k, jnp.float32(_PI2_B))
+    r_hi, r_lo = df_add(hi, lo, -p1, -e1)
+    r_hi, r_lo = df_add(r_hi, r_lo, -p2, -e2)
+    r_hi, r_lo = fast_two_sum(r_hi, r_lo - k * jnp.float32(_PI2_C))
 
-    x2_hi, x2_lo = eft.df_mul(r_hi, r_lo, r_hi, r_lo)
-    s_hi, s_lo = _df_horner_x2(_SIN_COEFS, x2_hi, x2_lo, eft)
-    s_hi, s_lo = eft.df_mul(s_hi, s_lo, r_hi, r_lo)   # sin(r) = r * S(r^2)
-    c_hi, c_lo = _df_horner_x2(_COS_COEFS, x2_hi, x2_lo, eft)
+    x2_hi, x2_lo = df_mul(r_hi, r_lo, r_hi, r_lo)
+    s_hi, s_lo = _df_horner_x2(_SIN_COEFS, x2_hi, x2_lo)
+    s_hi, s_lo = df_mul(s_hi, s_lo, r_hi, r_lo)   # sin(r) = r * S(r^2)
+    c_hi, c_lo = _df_horner_x2(_COS_COEFS, x2_hi, x2_lo)
 
     q = jnp.mod(k, jnp.float32(4.0))
 
@@ -364,13 +349,6 @@ def df_sincos(hi, lo, eft=None):
 # ------------------------------------------------------------------ #
 # host-side conversions
 # ------------------------------------------------------------------ #
-def df_const(value):
-    """Split a host f64 scalar into an (hi, lo) pair of python floats."""
-    hi = np.float32(value)
-    lo = np.float32(np.float64(value) - np.float64(hi))
-    return float(hi), float(lo)
-
-
 def df_split_array(x):
     """Split a host f64 array into (hi, lo) f32 numpy arrays."""
     x = np.asarray(x, dtype=np.float64)

@@ -18,13 +18,13 @@ while preserving uniformity (Hickernell 2002), recovering the higher
 rate without touching the integrand.
 
 Why lattices next to Sobol': the point set is ONE fused-multiply-mod
-per coordinate (no direction-number tables, no bit hacking — pure VPU
+per coordinate (no direction-number tables, no bit hacking — pure elementwise
 arithmetic, generation is effectively free at any dimension), the rule
 is exact on every dual-lattice Fourier mode (``h . z = 0 mod n`` — an
 ALGEBRAIC pin the tests use), and shift randomization preserves the
 lattice group structure where scrambling cannot.
 
-TPU-first: the CBC construction runs once on host (vectorized numpy
+Device-first: the CBC construction runs once on host (vectorized numpy
 O(d n^2), cached per (n, d, weights)); point generation and the whole
 R-shift estimate run on device as one jitted program (integer index
 times integer z mod n in exact f64/f32 range, shifts as operands), so
@@ -230,7 +230,7 @@ def _check_exact_range(n, dtype):
 
 def lattice_points(z, n, shift=None, start=0, count=None, dtype=None):
     """Device-side lattice nodes ``frac(i z / n + shift)`` for
-    ``i = start .. start+count-1`` — pure VPU arithmetic (exact integer
+    ``i = start .. start+count-1`` — pure elementwise arithmetic (exact integer
     product mod n, one multiply-add per coordinate).
 
     :param z: ``[d]`` generating vector (host ints or device array).

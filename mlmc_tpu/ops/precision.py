@@ -1,47 +1,51 @@
-"""f64 host reference + derived error bound for the f32 Pallas fast tier.
+"""f64 host references + derived error bounds for the estimation tiers.
 
-The Pallas kernels accumulate in f32 with Kahan compensation across chunks
-(ops/pallas_kernels.py:_kahan_into). The deterministic-body kernels consume
-f32 sample values, so the right precision question is: how far can the f32
-kernel's sums drift from an EXACT (f64) summation of the same f32
-per-sample values?
+The float32 fast tier (ops/fused_estimate: stored-sample pipeline)
+accumulates in f32 with Kahan compensation across chunks
+(fused_estimate._chunk_loop). It consumes f32 sample values, so the right
+precision question is: how far can its sums drift from an EXACT (f64)
+summation of the same f32 per-sample values?
 
 Error model (standard compensated-summation analysis):
 
-* per-sample Legendre values differ from the host's by rounding inside the
+* per-sample basis values differ from the host's by rounding inside the
   three-term recurrence — at most ``K_REC`` roundings of magnitude
   ``eps32 * |phi|`` each (the recurrence is stable for |t| <= 1, values
   bounded by 1);
-* each within-chunk reduction contributes ~``log2(chunk)`` roundings of the
-  running partial (tree reduce) — bounded by ``eps32 * K_SUM * sum|term|``;
+* each within-chunk reduction (sums, and the covariance contraction at
+  ``Precision.HIGHEST``, i.e. true f32 rather than TF32) contributes
+  ~``log2(chunk)`` roundings of the running partial — bounded by
+  ``eps32 * K_SUM * sum|term|``;
 * Kahan across chunks leaves ONE rounding of the final value instead of
   O(n_chunks) — this is what makes the bound independent of sample count.
 
-Together:  |pallas - f64_ref|  <=  eps32 * C_BOUND * S_abs
+Together:  |fast tier - f64_ref|  <=  eps32 * C_BOUND * S_abs
 with S_abs = sum of |terms| and C_BOUND a conservative constant covering
 recurrence depth (R <= 32), reduction trees and margin. The bound is
-asserted by tests/test_pallas_kernel.py and checked on the real chip by
-bench.py (replacing the round-1 6-sigma statistical check flagged in
-VERDICT.md).
+asserted by tests/test_pallas_kernel.py, by bench.py and by chip_smoke.py
+on the device.
+
+The extended tier runs the same pipeline in float64; it is held to
+``f64_error_bound`` against the all-f64 reference
+``f64_reference_moments_strict``.
 """
 import numpy as np
 
+from mlmc_tpu.ops.fused_estimate import STORED_CHUNK
+
 EPS32 = np.float32(np.finfo(np.float32).eps)  # 1.19e-7
 # recurrence (<=2 roundings x 32 steps) + reduction tree (log2 32768 = 15)
-# + Kahan residual + 4x margin
+# + Kahan residual + 4x margin; the covariance shares the bound (its
+# contraction runs at HIGHEST precision, the same f32 rounding model)
 C_BOUND = 4 * (2 * 32 + 15 + 2)
-# Covariance shares this bound: the kernel's split self-product
-# (pallas_kernels._cov_self_product) carries ~(2^-17 + 2^-18) * abs of
-# per-product error (bf16-truncated cross term + dropped lo lo^T),
-# ~3.4x below eps32 * C_BOUND; the Kahan cross-chunk term is identical.
 
 
 def f64_reference_moments(noise, n_moments, *, fine_step, coarse_step,
                           domain, is_level0=False, chunk=262144,
                           include_cov=True):
-    """Exact-summation reference for the synth noise-input kernel.
+    """Exact-summation reference for the synthetic noise-input level.
 
-    Per-sample values are computed in f32 (matching the kernel's value
+    Per-sample values are computed in f32 (matching the fast tier's value
     path), sums in f64. Returns the accumulators plus the absolute-value
     sums S_abs that scale the error bound. ``include_cov=False`` skips the
     covariance matmuls (the host-side cost driver) — used by bench.py's
@@ -70,7 +74,7 @@ def f64_reference_moments(noise, n_moments, *, fine_step, coarse_step,
     n_valid = 0
 
     def legendre_f32(t, valid):
-        """f32 three-term recurrence, invalid columns zeroed like the kernel."""
+        """f32 three-term recurrence, invalid columns zeroed like the tier."""
         t = np.where(valid, t, np.float32(0.0)).astype(np.float32)
         phi = np.zeros((R, t.shape[0]), dtype=np.float32)
         phi[0] = valid.astype(np.float32)
@@ -98,7 +102,7 @@ def f64_reference_moments(noise, n_moments, *, fine_step, coarse_step,
             dphi = pf32.astype(np.float64)
         else:
             pc32 = legendre_f32(t_c, valid)
-            # the kernel subtracts in f32; difference of exact f32 values
+            # the tier subtracts in f32; difference of exact f32 values
             # is itself computed here in f64 of those f32 values
             dphi = pf32.astype(np.float64) - pc32.astype(np.float64)
 
@@ -123,30 +127,30 @@ def f64_reference_moments(noise, n_moments, *, fine_step, coarse_step,
 
 
 def accumulation_error_bound(abs_sums):
-    """Derived bound on |f32-Kahan kernel - f64 reference| (see module doc)."""
+    """Derived bound on |f32-Kahan fast tier - f64 reference| (module doc)."""
     return float(EPS32) * C_BOUND * np.asarray(abs_sums)
 
 
 # ------------------------------------------------------------------ #
-# extended (double-float) tier: strict all-f64 reference + df bound
+# extended (float64) tier: strict all-f64 reference + f64 bound
 # ------------------------------------------------------------------ #
-#: double-float unit roundoff (renormalized pair of f32s, ~49 bits)
-EPS_DF = float(2.0 ** -48)
+#: float64 unit roundoff
+EPS64 = float(2.0 ** -53)
 
 
-def df_error_bound(abs_sums, n_samples, chunk=8192, basis_depth=32):
-    """Deterministic bound on |df kernel - all-f64 reference|.
+def f64_error_bound(abs_sums, n_samples, chunk=STORED_CHUNK, basis_depth=32):
+    """Deterministic bound on |extended tier - all-f64 reference|.
 
-    Error sources, all O(2^-48) relative per operation:
-    * df basis recurrence: <= ~4 df ops x basis_depth roundings per value,
-    * pairwise lane folds: 2 log2(chunk) levels,
-    * sequential cross-chunk accumulation: 3 roundings per chunk of the
-      running (<= final) magnitude.
-    Worst-case sequential; measured deviations sit 1-2 orders below.
+    Error sources, all O(2^-53) relative per operation:
+    * basis recurrence: <= ~4 roundings x basis_depth per value,
+    * within-chunk reductions: 2 log2(chunk) levels,
+    * cross-chunk accumulation: 3 roundings per chunk of the running
+      (<= final) magnitude.
+    Worst-case sequential; measured deviations sit orders below.
     """
     n_chunks = -(-int(n_samples) // chunk)
     c = 4 * basis_depth + 2 * np.log2(chunk) + 3 * n_chunks
-    return EPS_DF * c * np.asarray(abs_sums)
+    return EPS64 * c * np.asarray(abs_sums)
 
 
 def f64_reference_moments_strict(noise=None, n_moments=None, *,
@@ -154,7 +158,7 @@ def f64_reference_moments_strict(noise=None, n_moments=None, *,
                                  is_level0=False, chunk=262144,
                                  include_cov=True, fine32=None,
                                  coarse32=None):
-    """ALL-f64 reference for the extended-precision kernels.
+    """ALL-f64 reference for the extended (float64) tier.
 
     Mirrors the reference library's own pipeline on identical f32 QoI
     inputs: the QoIs are f32 (what a store holds), then the domain
@@ -165,15 +169,15 @@ def f64_reference_moments_strict(noise=None, n_moments=None, *,
     Pass either ``noise`` + steps — the synth QoI transform is recomputed
     here in numpy f32 — or the QoI arrays ``fine32``/``coarse32``
     directly. The strict comparison REQUIRES bitwise-identical QoI bits on
-    both sides; on real TPU hardware XLA's f32 ``sqrt`` is not guaranteed
-    bitwise equal to numpy's, so callers comparing against a device run of
-    the noise pipeline must compute the QoIs once (on device), pull them
-    to host, and pass them via ``fine32``/``coarse32``.
+    both sides; a device's f32 ``sqrt`` is not guaranteed bitwise equal to
+    numpy's, so callers comparing against a device run of the noise
+    pipeline must compute the QoIs once (on device), pull them to host,
+    and pass them via ``fine32``/``coarse32``.
 
     :return: dict(sums, sums2, cov_fine, cov_coarse, n_valid, abs_*)
     """
     if fine32 is None:
-        # f32 QoI path (bitwise identical to the kernel's eager prologue
+        # f32 QoI path (bitwise identical to the device's QoI transform
         # when both run the same sqrt implementation)
         noise = np.asarray(noise, dtype=np.float32)
         err = np.sqrt(np.float32(1e-4) + np.abs(noise), dtype=np.float32)
@@ -245,14 +249,12 @@ def f64_reference_moments_strict(noise=None, n_moments=None, *,
                 abs_cov_fine=abs_cov_f, abs_cov_coarse=abs_cov_c)
 
 
-def check_extended_against_f64(result, ref, n_samples, chunk=8192,
-                               include_cov=True, cov_rel_tol=1e-9):
-    """Assert the extended kernel against the strict all-f64 reference.
+def check_extended_against_f64(result, ref, n_samples, chunk=STORED_CHUNK,
+                               include_cov=True, cov_rel_tol=1e-10):
+    """Assert the extended tier against the strict all-f64 reference.
 
-    sums/sums2 must meet the DERIVED double-float bound; the covariance is
-    held to an empirical relative tolerance (its 8-bit-split MXU path has
-    a ~1e-7 worst-case deterministic bound but measures ~1e-10 — module
-    docstring of ops/pallas_extended.py).
+    sums/sums2 must meet the derived float64 bound (``f64_error_bound``);
+    the covariance is held to ``cov_rel_tol`` relative to S_abs.
 
     :return: dict of measured max relative deviations
     """
@@ -262,14 +264,14 @@ def check_extended_against_f64(result, ref, n_samples, chunk=8192,
     for name in ("sums", "sums2"):
         got = np.asarray(getattr(result, name))
         want = ref[name]
-        bound = df_error_bound(ref["abs_" + name], n_samples, chunk=chunk)
+        bound = f64_error_bound(ref["abs_" + name], n_samples, chunk=chunk)
         err = np.abs(got - want)
         report[name] = float(np.max(err / np.maximum(ref["abs_" + name],
                                                      1.0)))
         if not np.all(err <= bound + 1e-13):
             worst = int(np.argmax(err - bound))
             raise AssertionError(
-                "extended %s exceeds df bound at %d: err=%.3g bound=%.3g"
+                "extended %s exceeds f64 bound at %d: err=%.3g bound=%.3g"
                 % (name, worst, err[worst], bound[worst]))
     if include_cov:
         for name in ("cov_fine", "cov_coarse"):
@@ -283,9 +285,9 @@ def check_extended_against_f64(result, ref, n_samples, chunk=8192,
 
 
 def check_against_f64(result, ref, include_cov=True):
-    """Assert the kernel result against the f64 reference + derived bound.
+    """Assert a fast-tier result against the f64 reference + derived bound.
 
-    :param result: SynthMomentResult from the Pallas kernel
+    :param result: SynthMomentResult from the float32 fast tier
     :param ref: dict from f64_reference_moments
     :return: dict of measured max deviations (for reporting)
     """

@@ -7,9 +7,9 @@ This module goes beyond parity: randomized QMC points generated entirely
 on device, feeding the MLQMC driver (`mlmc_tpu.qmc`) that reaches a
 target estimator variance with far fewer samples on smooth integrands.
 
-TPU mapping: Sobol' generation and Owen scrambling are pure 32-bit
+Device mapping: Sobol' generation and Owen scrambling are pure 32-bit
 integer ops (XOR reductions, bit reversals, wrapping multiplies) — ideal
-VPU work with no transcendentals and no host round trips. The uniform
+elementwise device work with no transcendentals and no host round trips. The uniform
 floats keep the top 23 bits in f32 (all 32 in f64), strictly inside
 (0, 1); normal variates come from a single `ndtri` evaluation per point.
 

@@ -1,6 +1,6 @@
 """Multi-host (pod / multi-slice) runtime glue.
 
-The TPU-native replacement for the reference's PBS cluster backend
+The device-native replacement for the reference's PBS cluster backend
 (reference mlmc/sampling_pool_pbs.py:48-437 + mlmc/tool/pbs_job.py:14-384):
 where the reference packs samples into qsub jobs and polls qstat over a
 shared filesystem, a pod run is ONE jax program over a global device mesh —
@@ -32,8 +32,9 @@ from mlmc_tpu.parallel.mesh import SampleMesh
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
     """jax.distributed handshake; safe no-op for single-process runs.
 
-    On TPU pods the arguments are auto-detected from the environment
-    (TPU metadata); pass them explicitly for CPU/GPU multi-process tests.
+    Pass the coordinator address (``localhost:<port>`` on one machine),
+    process count and id explicitly where the environment names no
+    cluster, as for CPU/GPU multi-process runs.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -31,7 +31,7 @@ glued and the correction variance decays at the coupling's strong rate
 instead of O(1). Identical fine/coarse kernels give EXACTLY zero
 correction (the coupling degenerates to equality) — pinned by test.
 
-TPU-first design: the particle population IS the device batch
+Device-first design: the particle population IS the device batch
 ([islands, m, d] resident in HBM) and each filter pass is ONE jitted
 ``lax.scan`` over time — per step a batched transition, a vmapped
 log-likelihood, softmax/cumsum/searchsorted resampling (static shapes;

@@ -21,15 +21,15 @@ Two fits:
 
 * **regression** (point collocation): least squares on sampled
   ``(theta, y)`` pairs — one device ``lstsq`` on the [N, P] design
-  matrix (MXU work), optional ridge ``reg``;
+  matrix (matmul work), optional ridge ``reg``;
 * **projection**: ``c_alpha = E[f Psi_alpha]`` on a Smolyak sparse
   grid (mlmc_tpu/collocation.py) — exact when the rule's polynomial
   exactness covers ``degree(f) + degree``.
 
-TPU-first design: the three-term recurrences build all 1-D polynomial
+Device-first design: the three-term recurrences build all 1-D polynomial
 values in one pass ([N, d, p+1]); the multivariate design matrix is a
 gather+product, the fit one batched linear solve, and the surrogate one
-``[N, P] @ [P, q]`` matmul per batch — every hot step MXU-shaped.
+``[N, P] @ [P, q]`` matmul per batch — every hot step matmul-shaped.
 
 Cite: reference has no surrogate/PCE capability; nearest neighbours are
 its moment bases (reference mlmc/moments.py:1-), which this module
@@ -163,7 +163,7 @@ class PCE:
         (the constant term is never penalized). Solved by FISTA
         (Beck-Teboulle 2009) entirely on device: the iteration is two
         [N, P] matmuls + a soft threshold, the step from a power-method
-        bound of ||Psi^T Psi||/N — MXU work with static shapes. When
+        bound of ||Psi^T Psi||/N — matmul work with static shapes. When
         ``lam`` is None it is selected by k-fold cross-validation over
         ``lam_grid`` (default: lam_max * logspace(-4, -0.5, 16)); folds
         are mask-weighted, so every (fold, lambda) cell reuses ONE

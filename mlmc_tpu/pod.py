@@ -17,11 +17,11 @@ mlblue` consume; unlike the data-fit surrogates (PCE/GP tiers) it
 needs no input parametrization and inherits the PDE's structure
 (measured rho ~ 0.999 at r = 24 on the 32^2 benchmark field).
 
-TPU-first design: the snapshot pilot is one vmapped batch of the
+Device-first design: the snapshot pilot is one vmapped batch of the
 existing spectral-preconditioned solves; the SVD runs once on the
 host (an [n_cells, S] panel). Per surrogate sample the reduced
-assembly is ``A(K) V`` — r stencil applications, slice/concat VPU
-work — followed by one [r, n_cells] x [n_cells, r] MXU contraction
+assembly is ``A(K) V`` — r stencil applications, slice/concat
+work — followed by one [r, n_cells] x [n_cells, r] matmul contraction
 and an [r, r] solve, all inside jit and vmapped over the batch.
 
 No reference analogue (the reference has no surrogate capability).

@@ -12,7 +12,7 @@ estimator variance is measured ACROSS the randomizations, and the level
 whose variance is cheapest to reduce gets its point count doubled until
 the total meets the target.
 
-Design (TPU-first, mirrors FusedMLMC's streaming economics):
+Design (device-first, mirrors FusedMLMC's streaming economics):
 - points are generated on device (`ops.sobol`: XOR/hash integer work),
   pushed through the level function and reduced to per-randomization
   sums in ONE dispatch per extension — nothing but [R]-vectors ever

@@ -1,4 +1,4 @@
-"""Lazy, typed Quantity algebra over stored MLMC samples — TPU-native.
+"""Lazy, typed Quantity algebra over stored MLMC samples — device-native.
 
 Re-design of reference mlmc/quantity/quantity.py:14-695. A Quantity is a DAG
 node holding a *pure array operation* over level chunks ``[M, N, 2]``.

@@ -1,4 +1,4 @@
-"""Correlated Gaussian random field generators — TPU-native.
+"""Correlated Gaussian random field generators — device-native.
 
 Re-design of reference mlmc/random/correlated_field.py:12-755. Same field
 model: stationary covariance ``c(X) = sigma^2 exp(-|X^T K X|^(alpha/2))``
@@ -14,7 +14,7 @@ optional log-field. Three generators:
   :501-553): ``F(x) = sigma*sqrt(2/M) sum_m cos(k_m . x + phi_m)`` with
   ``k_m`` drawn from the spectral measure of the covariance (Gaussian for
   alpha=2, multivariate Student-t(1) for alpha=1). Evaluation is one
-  ``[N_pts, d] @ [d, M]`` matmul + cos — MXU-friendly, works for arbitrary
+  ``[N_pts, d] @ [d, M]`` matmul + cos — matmul-friendly, works for arbitrary
   point sets, O(N*M) with no decomposition.
   ``GSToolsSpatialCorrelatedField`` and ``FourierSpatialCorrelatedField``
   are API aliases of this class.
@@ -263,7 +263,7 @@ class FourierSpatialCorrelatedField(SpectralCorrelatedField):
 class CirculantEmbeddingField(RandomFieldBase):
     """Exact stationary GRF on a regular grid via FFT circulant embedding.
 
-    The TPU-first generator (SURVEY.md §2 'Correlated random fields' row):
+    The device-first generator (SURVEY.md §2 'Correlated random fields' row):
     eigenvalues of the embedded circulant = FFT of one covariance row; a
     sample is ``real(IFFT(sqrt(eig) * W))`` with complex white noise W.
     O(N log N), exact covariance, fully on device, vmappable over keys.
@@ -326,8 +326,8 @@ class CirculantEmbeddingField(RandomFieldBase):
 
     #: embedding sizes up to this use the matmul DFT (2D only): the crop
     #: to the grid folds into the DFT row count, so the whole transform is
-    #: six MXU matmuls — ~10x XLA's small-size complex fftn on TPU. Past
-    #: it the O(M^1.5) matmul flops overtake the O(M log M) FFT.
+    #: six matmuls. Past it the O(M^1.5) matmul flops overtake the
+    #: O(M log M) FFT.
     DFT_MATMUL_MAX_EMB = 512 * 512
 
     def _dft_matrices(self):
@@ -351,14 +351,14 @@ class CirculantEmbeddingField(RandomFieldBase):
         s = jnp.sqrt(self._eig)
         if len(shape) == 2 and self._emb_size <= self.DFT_MATMUL_MAX_EMB:
             # Re(F1c A F2c^T) with A = s*(wr + i wi), Fkc = (C - iS) cropped
-            # to the grid rows — six real matmuls, all MXU-shaped:
+            # to the grid rows — six real matmuls, all matmul-shaped:
             #   B = F1c A        = (C1 Ar + S1 Ai) + i (C1 Ai - S1 Ar)
             #   Re(B F2c^T)      = Br C2^T + Bi S2^T
             (c1, s1), (c2, s2) = self._dft_matrices()
             ar = s * wr
             ai = s * wi
-            # HIGHEST: the TPU default f32 matmul is ONE bf16 pass (8
-            # mantissa bits), which would corrupt the exact covariance
+            # HIGHEST: a default-precision f32 matmul may run in TF32 or
+            # bf16 passes, which would corrupt the exact covariance
             mm = functools.partial(jnp.matmul,
                                    precision=jax.lax.Precision.HIGHEST)
             br = mm(c1, ar) + mm(s1, ai)

@@ -1,4 +1,4 @@
-"""Device-side sampling distributions for TPU-native simulations.
+"""Device-side sampling distributions for device-native simulations.
 
 The reference passes scipy frozen distributions into simulation configs
 (reference mlmc/sim/synth_simulation.py:29). On device we need pure,

@@ -3,7 +3,7 @@
 The reference (mlmc/random/frac_geom.py:1-139) builds fractured-domain
 UNSTRUCTURED meshes through the external ``geomop`` package and the gmsh
 binary, to be solved by the external flow123d FEM code. Neither external
-exists here, and a TPU-first design does not want an unstructured mesh at
+exists here, and a Device-first design does not want an unstructured mesh at
 all: the fracture network is generated ON DEVICE and rasterized into the
 conductivity grid of the device Darcy solver (sim/diffusion.py) — one
 jitted program per coupled fine/coarse sample, vmapped over the batch.

@@ -27,7 +27,7 @@ coupled coarse levels, or simply by choosing ``g`` as the finest-level
 functional (the per-stage populations are device batches, so fine
 solves are cheap).
 
-TPU-first design: the population IS the device batch, shaped
+Device-first design: the population IS the device batch, shaped
 ``[n_islands, m]``. Each stage is ONE jitted program — systematic
 resampling of the per-island exceeders + a ``lax.scan`` of conditional
 pCN moves — with the per-island thresholds an OPERAND (one executable

@@ -443,14 +443,15 @@ class Memory(SampleStorage):
 
 
 class DeviceMemory(Memory):
-    """HBM-resident storage: per-level results stay DEVICE arrays end to end.
+    """Device-resident storage: per-level results stay DEVICE arrays end to
+    end.
 
-    SURVEY §2's designated TPU equivalent of the reference Memory storage
+    SURVEY §2's designated device equivalent of the reference Memory storage
     ("HBM-resident per-level ring buffers"). With a DeviceBatchPool running
     ``device_results=True``, samples are produced, stored, and estimated
-    without ever crossing the host<->device link — on a remote-attached TPU
-    the link is the entire cost of stored-sample estimation (a 1e6-sample
-    x 30-component chunk is ~0.1 GB per pass).
+    without ever crossing the host<->device link, which would otherwise
+    carry every estimation pass (a 1e6-sample x 30-component chunk is
+    ~0.1 GB per pass).
 
     The id/cost/failure bookkeeping stays on host (tiny); only the result
     payload lives in HBM — the only difference from Memory is the array

@@ -9,7 +9,7 @@ Stud. 14, 2001) estimate that conditional expectation by least-squares
 regression of realized discounted cashflows onto basis functions of
 the state, restricted to in-the-money paths.
 
-TPU-first design: the whole backward induction is ONE jitted
+Device-first design: the whole backward induction is ONE jitted
 ``lax.scan`` over exercise dates — per date a basis Vandermonde
 [B, K], a weighted least-squares fit by QR on the column-equilibrated
 panel (cond(G), not the normal equations' cond(G)^2 — degree 6-7
@@ -79,8 +79,8 @@ def _blocked_normal_eq(G, y, blk=2048):
 
     A single [B, K]x[K, B] contraction accumulates the whole sample
     axis into one f32 running sum: at B = 131072 the rounding random
-    walk reaches ~2e-5 relative on the Gram entries (measured on the
-    v5e), which a raw-monomial cond(A) ~ 2e5 turns into O(1)
+    walk reaches ~2e-5 relative on the Gram entries, which a
+    raw-monomial cond(A) ~ 2e5 turns into O(1)
     coefficient error — the 50-date global LSMC fit silently bled 8% of
     the option value, worsening WITH more paths. Two-stage contraction
     (per-2048-block partials, then a short cross-block sum) bounds the
@@ -518,7 +518,7 @@ def lsmc_dual_bound(payoff: Callable, s0: float, rate: float, T: float,
     # narrow early-date state distributions give degree-5 centered fits
     # coefficients ~1e3, whose raw-basis image needs ~9 cancelling
     # digits (+/-1.3e4 terms summing to 0.05) — the martingale drifted
-    # and the 50-date dual collapsed to 0 on the v5e.
+    # and the 50-date dual collapsed to 0 in float32.
     ks = np.arange(K)
     raw_mom = np.exp(ks * drift_h + 0.5 * (ks * vol_h) ** 2)
     Qmat = np.zeros((K, K))
@@ -887,7 +887,7 @@ def lsmc_swing(payoff: Callable, s0: float, rate: float, T: float,
     each C estimated by Longstaff-Schwartz regression of the realized
     discounted cashflow stack [Q, B] — the whole induction is still ONE
     jitted ``lax.scan`` over dates (the q-loop is a small static
-    unroll; per date Q MXU normal equations). Two-pass foresight-bias
+    unroll; per date Q normal equations). Two-pass foresight-bias
     control as in :func:`lsmc_price`: the frozen [n_dates-1, Q, K]
     surface prices an independent path set.
 

@@ -18,8 +18,8 @@ evaluated at element centers. Here the whole sample is ONE jitted program
   conductivities, solved by conjugate gradients
   (jax.scipy.sparse.linalg.cg) under a diagonally-scaled spectral
   preconditioner (see ``_solve_pressure``) — matvec is a stencil and the
-  preconditioner is batched MXU matmuls, so the whole solve lives in
-  VPU/MXU land and vmaps over the sample batch,
+  preconditioner is batched matmuls, so the whole solve lives in
+  dense device arithmetic and vmaps over the sample batch,
 * QoI = total outflow flux through the right edge (the reference extracts
   ``.bc_outflow`` from flow123d's water_balance.yaml, flow_mc.py:412-445),
   which estimates the effective conductivity of the medium.
@@ -165,7 +165,7 @@ class DiffusionSimulation(Simulation):
         ``sin((j+1/2) k pi/n), k=1..n`` and the DCT-II rows
         ``cos((j+1/2) l pi/n), l=0..n-1`` with eigenvalues
         ``4 sin^2(k pi / 2n)``.  At benchmark sizes (n <= 64) applying
-        the dense orthogonal matrices is a batched MXU matmul — faster
+        the dense orthogonal matrices is a batched matmul — faster
         and simpler than an FFT factorization.
 
         :return: (Sx [n,n] DST-II, Cy [n,n] DCT-II, lam [n,n] with
@@ -217,7 +217,7 @@ class DiffusionSimulation(Simulation):
         """A @ p for the 5-point FV operator given face transmissibilities.
 
         ``p`` is [n, n]; Dirichlet enters through the half-cell columns.
-        Slice/concat assembly (TPU scatter-add lowers slowly)."""
+        Slice/concat assembly (scatter-add lowers slowly on accelerators)."""
         n = p.shape[0]
         zx = jnp.zeros((n, 1), p.dtype)
         zy = jnp.zeros((1, n), p.dtype)
@@ -287,7 +287,7 @@ class DiffusionSimulation(Simulation):
             n = n // 2
         # dense coarsest operator via matvec on identity columns; invert
         # ONCE in setup — the coarsest correction inside the CG loop is
-        # then a single [c^2, c^2] matvec (MXU-friendly; re-factorizing
+        # then a single [c^2, c^2] matvec (matmul-friendly; re-factorizing
         # per iteration would dominate the cycle cost), and the inverse of
         # the tiny SPD system is plenty accurate for a preconditioner
         eye = jnp.eye(n * n, dtype=Kx.dtype)
@@ -357,7 +357,7 @@ class DiffusionSimulation(Simulation):
             # Diagonally-scaled spectral preconditioner
             #   M = W . C_1^{-1} . W,   W = diag( sqrt(diag_C / diag_A) )
             # where C_1 is the unit-coefficient 5-point operator (exact
-            # inverse = two orthogonal transforms, MXU matmuls, and a
+            # inverse = two orthogonal transforms, matmuls, and a
             # spectral divide). The spectral part removes the O(n^2) grid
             # factor from the condition number; the Jacobi-like scaling
             # absorbs the field's LOCAL contrast, which the plain

@@ -15,7 +15,7 @@ by conjugate gradients under the diagonally-scaled SPECTRAL
 preconditioner: the unit-coefficient 7-point operator separates into
 three 1-D tridiagonals whose exact eigenbases are DST-II (Dirichlet
 half-cell, x) and DCT-II (Neumann, y and z) — applied as three dense
-[n, n] tensor contractions per CG iteration, i.e. batched MXU matmuls
+[n, n] tensor contractions per CG iteration, i.e. batched matmuls
 against [n, n^2] panels, with the Jacobi-like scaling
 ``W = sqrt(diag_C / diag_A)`` absorbing the field's local contrast
 (same construction measured in 2-D to cut worst-sample CG iterations
@@ -27,7 +27,7 @@ ensemble mean sits near Matheron's 3-D estimate K_g exp(sigma^2/6)).
 
 The whole coupled sample is ONE jitted program vmapped over the batch;
 a 32^3+16^3 coupled pair is ~37k cells of stencil work per CG
-iteration, entirely in VPU/MXU land.
+iteration, entirely in dense device arithmetic.
 """
 import copy
 from typing import List
@@ -153,7 +153,7 @@ class DiffusionSimulation3D(Simulation):
     def _stencil_matvec(p, Kx, Ky, Kz, Kin, Kout):
         """A @ p for the 7-point FV operator, p [n, n, n]; axis 0 is
         the Dirichlet x direction (half-cell boundary faces Kin/Kout
-        [n, n]). Slice/concat assembly, as in 2-D (TPU scatter-add
+        [n, n]). Slice/concat assembly, as in 2-D (scatter-add
         lowers slowly)."""
         n = p.shape[0]
         zx = jnp.zeros((1, n, n), p.dtype)

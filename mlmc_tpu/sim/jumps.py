@@ -16,7 +16,7 @@ jump over that substep. :func:`merton` builds the risk-neutral Merton
 has the classic Poisson-mixture closed form
 (:func:`merton_call_price`), the validation anchor.
 
-TPU-first coupling (the jump analogue of the shared Brownian path in
+Device-first coupling (the jump analogue of the shared Brownian path in
 ``coupled_path_functionals``, sde.py:416): per fine substep the scan
 draws counter-derived ``N_j ~ Poisson(lam h_f)`` and ONE standard
 normal ``Z_j``, forming the substep log jump ``L_j = N_j*jump_mean +

@@ -11,7 +11,7 @@ gamma subordinator ``G_t ~ Gamma(t/nu, nu)``:
     ln S_t = ln S_0 + (r + omega) t + theta G_t + sigma W_{G_t},
     omega = ln(1 - theta nu - sigma^2 nu / 2) / nu   (martingale drift).
 
-TPU-first coupling — EXACT increments at every grid: VG increments are
+Device-first coupling — EXACT increments at every grid: VG increments are
 available in closed form at any step (gamma + conditionally-normal
 draw), so the fine path has NO time-discretization error in its state
 and the coarse path is the RESTRICTION of the very same path to every

@@ -22,7 +22,7 @@ the stoichiometric vector ``nu_k``. Two integrators:
   (loud, never silently truncated). Unbiased — the validation anchor
   for nonlinear networks without closed forms.
 
-TPU-first MLMC coupling (:func:`coupled_tau_leap`, the Anderson-Higham
+Device-first MLMC coupling (:func:`coupled_tau_leap`, the Anderson-Higham
 split): level ``l`` uses ``tau_l``; over each coarse step the coarse
 propensities ``a_c`` are FROZEN at the step-start state while the fine
 path re-evaluates ``a_f`` every substep; per substep and channel the

@@ -16,12 +16,12 @@ Hurst ``H ~ 0.05-0.2`` reproduces the observed roughness of realized
 volatility). Y is NOT a semimartingale for ``H < 1/2`` — no Markovian
 SDE scheme applies.
 
-TPU-first design — exact joint Gaussian by MXU matmul: the vector
+Device-first design — exact joint Gaussian by matmul: the vector
 ``(Y_{t_1..t_n}, DW_1..DW_n)`` is jointly Gaussian with closed-form
 covariance (hypergeometric ``2F1`` for Cov[Y_s, Y_t], elementary powers
 for Cov[Y_t, DW_j]); its Cholesky factor is built ONCE on host in f64
 and every path batch is one ``[B, 2n] @ [2n, 2n]`` matmul — the heavy
-op is exactly what the MXU is for, and the grid-time law of (Y, W) is
+op is exactly what matmul units are for, and the grid-time law of (Y, W) is
 EXACT at any n (no kernel-discretization bias; the only bias left is
 the Euler log-S step and the left-point freezing of v, both O(h)).
 

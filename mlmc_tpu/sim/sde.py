@@ -11,7 +11,7 @@ integrates with ``n_l = round(T / h_l)`` steps and the MLMC coupling
 shares ONE Brownian path: each coarse increment is the sum of its
 ``m = n_fine / n_coarse`` fine increments.
 
-TPU-first design:
+Device-first design:
 
 * a whole level batch advances as ``[B]`` state vectors inside one
   ``lax.scan`` over coarse steps (fine substeps unrolled — the refine
@@ -26,13 +26,13 @@ TPU-first design:
   Carlo estimation for multi-dimensional SDEs without Levy area
   simulation", Ann. Appl. Prob. 24(4), 2014) reverses each coarse
   interval's fine increments for a twin fine path and averages the two
-  payoffs — same Brownian budget, one extra VPU stream. The gain exists
+  payoffs — same Brownian budget, one extra elementwise stream. The gain exists
   where increment ORDER matters (path averages/extrema, additive-noise
   models: measured ~3-4x per level); it is an exact no-op for terminal
   payoffs of multiplicative schemes like GBM, whose per-step factors
   commute,
 * the QMC adapter maps low-discrepancy points through a Brownian-bridge
-  construction (one precomputed ``[n, n]`` matmul — MXU work) so the
+  construction (one precomputed ``[n, n]`` matmul — matmul work) so the
   early Sobol' dimensions carry the large-scale path structure, the
   classical recipe for making path integrals low-effective-dimension.
 
@@ -1030,7 +1030,7 @@ def sde_qmc_level_fns(sim, level_parameters, bridge=True):
     :param sim: an :class:`SDESimulation` (``qoi='payoff'``)
     :param level_parameters: as for Sampler (``[[h0], [h1], ...]``)
     :param bridge: route points through the Brownian-bridge matrix
-        (one [n, n] MXU matmul per batch); False = raw increment order
+        (one [n, n] matmul per batch); False = raw increment order
     :return: (level_fns, dims) for :class:`~mlmc_tpu.qmc.MLQMC`
     """
     if sim.config["qoi"] != "payoff":

@@ -6,7 +6,7 @@ force field F(t), QoI = final y (1D) or final position (2D); leaving the
 area borders poisons the sample with NaN (reference
 simulation_shooting_1D.py:86-121).
 
-TPU re-design:
+Device re-design:
 
 * the random force field is a spectral GRF (random Fourier features):
   ``F(t) = sigma*sqrt(2/M) sum_m cos(k_m t + phi_m)``; phases are drawn
@@ -14,7 +14,7 @@ TPU re-design:
   sample share EXACTLY the same field realization evaluated on their own
   time grids (the reference shares one field sampled on concatenated
   point sets, simulation_shooting_1D.py:76-82),
-* the field evaluation rides the MXU: by angle addition
+* the field evaluation is a matmul: by angle addition
   ``cos(t k + phi) = cos(tk) cos(phi) - sin(tk) sin(phi)`` and the
   ``cos(tk)/sin(tk)`` matrices are SAMPLE-INDEPENDENT, so a whole level
   batch is one ``[B, M] @ [M, T]`` matmul — 2M transcendentals per
@@ -117,7 +117,7 @@ class ShootingSimulation1D(Simulation):
 
     @classmethod
     def _force_field_batch(cls, config, keys, times, trig=None):
-        """Spectral GRF on the MXU: ``cos(tk + phi)`` splits into
+        """Spectral GRF as a matmul: ``cos(tk + phi)`` splits into
         sample-independent ``cos(tk)/sin(tk)`` [M, T] matrices contracted
         with per-sample phase trig — ONE [B, M*A] x [M*A-ish, T] matmul
         per level batch. :return: [B, T, A] force values.
@@ -133,7 +133,8 @@ class ShootingSimulation1D(Simulation):
         C, S = jnp.cos(tk), jnp.sin(tk)
         cosp, sinp = trig if trig is not None \
             else cls._phase_trig(config, keys)               # [B, M, A]
-        # einsum over modes; HIGHEST: the default TPU dot is one bf16 pass
+        # einsum over modes; HIGHEST: a default-precision f32 dot may run
+        # in TF32
         field = (jnp.einsum("bma,mt->bta", cosp, C,
                             precision=jax.lax.Precision.HIGHEST)
                  - jnp.einsum("bma,mt->bta", sinp, S,

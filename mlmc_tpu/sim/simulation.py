@@ -1,4 +1,4 @@
-"""Simulation contract (reference mlmc/sim/simulation.py:7-33) + TPU batch path.
+"""Simulation contract (reference mlmc/sim/simulation.py:7-33) + device batch path.
 
 A simulation provides per-level instances and two calculate entry points:
 
@@ -6,7 +6,7 @@ A simulation provides per-level instances and two calculate entry points:
   reference; used by the process/thread pools and external-binary sims),
 * ``calculate_batch(config, keys)`` — device path: a pure jnp function over a
   batch of PRNG keys, vmapped/jitted by the device pools. Simulations that
-  implement it run at TPU speed; others fall back to the host loop.
+  implement it run at device speed; others fall back to the host loop.
 """
 from abc import ABC, abstractmethod
 from typing import List
@@ -32,7 +32,7 @@ class Simulation(ABC):
     def calculate(config_dict, seed):
         """Single-sample calculation: -> (fine result, coarse result), flat arrays."""
 
-    # Device batch path — override in TPU-native simulations.
+    # Device batch path — override in device-native simulations.
     CALCULATE_BATCH = None
 
     @classmethod

@@ -16,7 +16,7 @@ finite differences (N cells), SEMI-IMPLICIT Euler — the stiff Laplacian
 is implicit and solved EXACTLY per step in its eigenbasis (the DST-II
 rows ``sin(k pi (i+1/2)/N)`` diagonalize the cell-centered Dirichlet
 Laplacian, cf. sim/diffusion.py:164), applied as a [B, N] x [N, N]
-matmul — MXU work, unconditionally stable in the linear part; the
+matmul — matmul work, unconditionally stable in the linear part; the
 reaction term and the noise are explicit.
 
 Noise: per cell-time box ``DW_i^n ~ N(0, dt/dx)`` (the L2-normalized

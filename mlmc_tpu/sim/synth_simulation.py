@@ -9,7 +9,7 @@ Re-design of reference mlmc/sim/synth_simulation.py:11-145. Semantics kept:
   locations get ``result + i`` offsets (:119-131),
 * ``nan_fraction`` failure injection -> failed samples (:88-91, 115-116).
 
-TPU re-design: ``calculate_batch(config, keys, attempt)`` computes a whole
+Device re-design: ``calculate_batch(config, keys, attempt)`` computes a whole
 level batch from PRNG keys in one fused jnp computation — the host pools'
 per-sample loop collapses into a vmapped expression. Failure injection is a
 per-(key, attempt) Bernoulli so renewing a failed sample can succeed, like

@@ -11,10 +11,10 @@ import os
 from typing import List
 
 import numpy as np
-import yaml
 
 from mlmc_tpu.sim.synth_simulation import SynthSimulation
 from mlmc_tpu.level_simulation import LevelSimulation
+from mlmc_tpu.tool import require
 
 
 class SynthSimulationWorkspace(SynthSimulation):
@@ -118,4 +118,4 @@ class SynthSimulationWorkspace(SynthSimulation):
     def _read_config():
         with open(os.path.join(os.getcwd(),
                                SynthSimulationWorkspace.CONFIG_FILE)) as f:
-            return yaml.safe_load(f)
+            return require("yaml", "SynthSimulationWorkspace").safe_load(f)

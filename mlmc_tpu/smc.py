@@ -21,7 +21,7 @@ and pCN-rejuvenation moves. Two things MCMC alone cannot give:
 * population sampling that is robust to multimodality (a particle
   population tempered from the prior does not need to tunnel).
 
-TPU-first design: the particle population IS the device batch. Each
+Device-first design: the particle population IS the device batch. Each
 stage is one jitted program: log-weight update + systematic resampling
 (sorted-cumsum + searchsorted, static shapes) + a lax.scan of pCN moves
 at the tempered target, with the temperature an OPERAND (one executable

@@ -1,6 +1,6 @@
 """Integer sample identity + lazy tag sequences.
 
-TPU-first replacement for the reference's string-id bookkeeping
+Device-first replacement for the reference's string-id bookkeeping
 (reference mlmc/sampler.py:114-120 builds one ``"L%02d_S%07d"`` string per
 sample inside a Python loop; reference mlmc/sampling_pool.py:75-84 hashes
 that string per sample). Here a sample is identified by the integer pair

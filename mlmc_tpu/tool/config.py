@@ -15,7 +15,11 @@ Here a small, typed front end:
 import copy
 import os
 
-import yaml
+from mlmc_tpu.tool import require
+
+
+def _yaml():
+    return require("yaml", "YAML configuration")
 
 
 def deep_merge(base, override):
@@ -31,7 +35,7 @@ def deep_merge(base, override):
 
 def _parse_scalar(text):
     """YAML-style scalar parsing for override values."""
-    return yaml.safe_load(text)
+    return _yaml().safe_load(text)
 
 
 def apply_overrides(config, overrides):
@@ -66,7 +70,7 @@ def load_config(path, overrides=None, _seen=None):
             "config include cycle involving {!r}".format(path))
     seen.add(path)
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        raw = _yaml().safe_load(f) or {}
     includes = raw.pop("include", [])
     if isinstance(includes, str):
         includes = [includes]

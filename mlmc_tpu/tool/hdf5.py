@@ -8,14 +8,14 @@ attr ``n_ops_estimate=[time, n_samples]``) so existing reference files
 resume under this framework and vice versa.
 
 Difference from the reference: one persistent (lazily opened) h5py handle
-per file instead of open-per-call — the TPU read path streams whole level
-chunks to device and open/close per chunk would dominate. ``close()`` /
+per file instead of open-per-call — the device read path streams whole
+level chunks and open/close per chunk would dominate. ``close()`` /
 context-manager support flushes for checkpoint handoff.
 """
 import numpy as np
-import h5py
 
 from mlmc_tpu.quantity.quantity_spec import ChunkSpec
+from mlmc_tpu.tool import require
 
 
 class HDF5:
@@ -32,8 +32,10 @@ class HDF5:
 
     # ------------------------------------------------------------------ #
     @property
-    def file(self) -> h5py.File:
+    def file(self):
+        """The open ``h5py.File`` (opened on first use)."""
         if self._file is None:
+            h5py = require("h5py", "HDF5 sample storage")
             self._file = h5py.File(self.file_name, "a")
         return self._file
 
@@ -151,7 +153,7 @@ class LevelGroup:
             self._make_datasets()
 
     @property
-    def group(self) -> h5py.Group:
+    def group(self):
         return self._hdf.file[self.level_group_path]
 
     def _make_datasets(self):

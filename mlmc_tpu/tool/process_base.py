@@ -7,7 +7,7 @@ driver. Subclasses implement ``setup_config(n_levels, clean)`` returning a
 
 The PBS environment switcheroo of the reference (:105-138) is replaced by
 device selection: samples execute on whatever jax.devices() provides
-(TPU chip(s) or the CPU mesh) through DeviceBatchPool.
+(GPU(s) or the CPU mesh) through DeviceBatchPool.
 """
 import argparse
 import os

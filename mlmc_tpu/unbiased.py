@@ -20,7 +20,7 @@ when the level variances decay faster than costs grow (beta > gamma in
 MLMC rate language) the estimator has finite variance AND finite
 expected cost per draw.
 
-TPU-first design (the dispatch economics of :class:`~mlmc_tpu.mimc.MIMC`):
+Device-first design (the dispatch economics of :class:`~mlmc_tpu.mimc.MIMC`):
 
 * the random per-draw levels are NEVER materialized per sample on
   device: level counts are drawn HOST-side by exact sequential

@@ -172,7 +172,7 @@ def test_fields_region_args_must_pair():
 
 
 def test_circulant_matmul_dft_matches_fftn():
-    """The TPU matmul-DFT path of the circulant sampler must reproduce the
+    """The matmul-DFT path of the circulant sampler must reproduce the
     fftn path exactly (same key, same eigenvalues): the six-matmul form is
     the SAME transform with the crop folded into the DFT row count, so any
     deviation beyond rounding is a construction bug (wrong sign convention,

@@ -1,10 +1,10 @@
 """Double-float (two-f32) arithmetic library tests.
 
-The df layer (mlmc_tpu/ops/df64.py) backs the extended-precision
-estimation tier and the on-device maxent Newton solver on f32-only
-hardware; these tests pin every primitive against f64 on CPU (the ops are
-plain IEEE f32 add/mul/div, identical on TPU — the TPU-specific risks,
-non-correctly-rounded sqrt/transcendentals, are never used).
+The df layer (mlmc_tpu/ops/df64.py) backs the double-float SDE path
+accumulation and the compensated f32 sums of the QMC/sensitivity drivers;
+these tests pin every primitive against f64 on CPU (the ops are plain
+IEEE f32 add/mul/div, identical on every backend — transcendentals, whose
+rounding a backend need not get right, are never used).
 """
 import numpy as np
 import pytest

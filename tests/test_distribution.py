@@ -6,6 +6,7 @@ Mirrors reference test/test_distribution.py: exact-moment convergence
 Uses exact moments computed by quadrature -> pure solver test (no MC noise).
 """
 import numpy as np
+import jax
 import pytest
 import scipy.stats as stats
 import scipy.integrate as integrate
@@ -211,13 +212,11 @@ def test_config3_two_gaussians_35_moments():
 
 
 def test_df_solver_matches_f64_on_same_grid():
-    """The double-float device Newton (`solver_backend='jax_df'` — the
-    production TPU path) tracks the f64 host solve on an identical
+    """The device Newton (`solver_backend='jax'`) runs in float64 even with
+    the global x64 flag OFF, and tracks the f64 host solve on an identical
     quadrature grid to ~1e-12 in the multipliers."""
-    import jax.numpy as jnp
-    from mlmc_tpu.ops import df64
     from mlmc_tpu.tool.simple_distribution import (
-        _newton_solve_df, _newton_solve_np)
+        _newton_solve_f64, _newton_solve_np)
 
     Q, R = 512, 10
     x = np.linspace(-1, 1, Q)
@@ -229,20 +228,19 @@ def test_df_solver_matches_f64_on_same_grid():
     lam0[0] = -np.log(0.5)
 
     lam_np, gn_np, _ = _newton_solve_np(q_mom, w, mu, lam0, 1e-10)
-    args = (*df64.df_split_array(q_mom), *df64.df_split_array(w),
-            *df64.df_split_array(mu), *df64.df_split_array(lam0))
-    lh, ll, gn_df, it = _newton_solve_df(
-        *map(jnp.asarray, args), jnp.float32(1e-10), max_iter=40)
-    lam_df = df64.df_to_f64(lh, ll)
-    assert float(gn_df) < 1e-9
-    assert np.abs(lam_np - lam_df).max() < 1e-10, np.abs(lam_np - lam_df).max()
+    with jax.enable_x64(False):
+        lam_j, gn_j, it = _newton_solve_f64(q_mom, w, mu, lam0, 1e-10)
+    assert lam_j.dtype == np.float64
+    assert float(gn_j) < 1e-9
+    assert np.abs(lam_np - lam_j).max() < 1e-10, np.abs(lam_np - lam_j).max()
 
 
 def test_df_solver_end_to_end_density_parity():
-    """Orthogonalized-basis maxent fit: the df backend reproduces the f64
-    host backend's DENSITY to ~1e-12 (the production construct_density
-    pipeline always orthogonalizes, which conditions the Hessian and
-    makes the multipliers well-determined)."""
+    """Orthogonalized-basis maxent fit: the device backend, run with the
+    global x64 flag OFF, reproduces the f64 host backend's DENSITY to
+    ~1e-12 (the production construct_density pipeline always
+    orthogonalizes, which conditions the Hessian and makes the
+    multipliers well-determined)."""
     cut = CutDistribution(stats.norm(0, 1), quantile=0.001)
     R = 16
     mfn = Legendre(R, cut.domain, safe_eval=False)
@@ -252,12 +250,14 @@ def test_df_solver_end_to_end_density_parity():
     md = np.stack((exact, np.ones(orto.size)), axis=1)
 
     dens = {}
-    for backend in ("numpy", "jax_df"):
+    for backend in ("numpy", "auto"):
         d = sd.SimpleDistribution(orto, md, domain=cut.domain,
                                   solver_backend=backend)
-        res = d.estimate_density_minimize(tol=1e-10)
+        with jax.enable_x64(False):
+            res = d.estimate_density_minimize(tol=1e-10)
         assert res.success, (backend, res.message)
         xs = np.linspace(cut.domain[0], cut.domain[1], 501)
         dens[backend] = d.density(xs)
-    diff = np.abs(dens["numpy"] - dens["jax_df"]).max()
+    assert d._solver_backend == "jax"
+    diff = np.abs(dens["numpy"] - dens["auto"]).max()
     assert diff < 1e-11, diff

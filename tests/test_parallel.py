@@ -92,57 +92,36 @@ def test_multihost_helpers_single_process():
 
 
 def test_sharded_pallas_pipeline_interpret():
-    """Pod-scale Pallas headline path: shard_map + psum around the fused
-    multi-level kernel, in interpret mode on the 8-device CPU mesh.
+    """Mesh-scale noise-input path: shard_map + psum around the packed
+    stored-sample pipeline on the 8-device CPU mesh equals the same noise
+    on one device (counts exactly, sums to f32 reduction order)."""
+    import pytest
+    from mlmc_tpu.parallel.sharded_estimate import (
+        sharded_synth_pipeline_from_noise)
 
-    The interpret-mode on-core PRNG is a zero stub, which makes every
-    Box-Muller pair deterministic: half the lanes get x1=sqrt(-2 ln u0)
-    (out of domain -> invalid), half get x2=0 (valid). The psum-reduced
-    accumulators are therefore exactly predictable.
-    """
-    from mlmc_tpu.parallel.sharded_estimate import sharded_synth_pipeline
-
-    R, chunk = 5, 1024
-    # 2-device mesh, ONE chunk per shard per level: interpret-mode
-    # emulation cost grows super-linearly with the shard count
-    n_per_level = (2048, 2048)
+    R, chunk = 5, 256
     level_steps = (0.5, 0.25)
     domain = (-4.0, 4.0)
+    noise = [np.asarray(jax.random.normal(jax.random.key(lvl), (8 * 2 * chunk,),
+                                          dtype=jax.numpy.float32))
+             for lvl in range(2)]
 
-    mesh = SampleMesh(jax.devices()[:2])
-    step = sharded_synth_pipeline(
-        mesh, R, n_per_level, level_steps, domain=domain, chunk=chunk,
-        interpret=True)
-    res = step(jax.numpy.int32(3))
+    out = {}
+    for n_dev in (1, 8):
+        mesh = SampleMesh(jax.devices()[:n_dev])
+        step = sharded_synth_pipeline_from_noise(
+            mesh, R, level_steps, domain=domain, chunk=chunk)
+        out[n_dev] = jax.tree.map(np.asarray, step(*noise))
+    for r1, r8 in zip(out[1], out[8]):
+        assert int(r1.n_valid) == int(r8.n_valid) > 0
+        assert np.allclose(r8.sums, r1.sums, rtol=1e-5, atol=1e-3)
+        assert np.allclose(r8.cov_fine, r1.cov_fine, rtol=1e-5, atol=1e-2)
+    # P0 telescopes to exactly one
+    mean0 = sum(float(r.sums[0]) / float(r.n_valid) for r in out[8])
+    assert abs(mean0 - 1.0) < 1e-6
 
-    # expected: x2 = 0 on the valid half of the lanes
-    def phi(x, h):
-        fine = x + h * np.sqrt(1e-4 + abs(x))
-        t = fine / 4.0
-        return np.polynomial.legendre.legvander(np.array([t]), R - 1)[0]
-
-    for lvl, r in enumerate(res):
-        n_valid = float(np.asarray(r.n_valid))
-        assert n_valid == n_per_level[lvl] / 2, (lvl, n_valid)
-        h = level_steps[lvl]
-        hc = 0.0 if lvl == 0 else level_steps[lvl - 1]
-        expect = phi(0.0, h) - (phi(0.0, hc) if lvl else 0.0)
-        got = np.asarray(r.sums) / n_valid
-        assert np.allclose(got, expect, atol=1e-5), (lvl, got, expect)
-
-    # mesh-size independence: a direct single-device call on the same
-    # totals reduces to the same statistics (zero-stub RNG is shard-blind)
-    from mlmc_tpu.ops.pallas_kernels import synth_mlmc_pipeline
-    direct = synth_mlmc_pipeline(
-        3, R, tuple(n // 2 for n in n_per_level), level_steps,
-        domain=domain, chunk=chunk, interpret=True)
-    for r_mesh, r_one in zip(res, direct):
-        assert float(r_mesh.n_valid) == 2 * float(r_one.n_valid)
-        assert np.allclose(np.asarray(r_mesh.sums),
-                           2 * np.asarray(r_one.sums), rtol=1e-6)
-
-    # counts that don't divide the mesh are rejected loudly
-    import pytest
+    # noise that does not split over the mesh is rejected loudly
+    step = sharded_synth_pipeline_from_noise(
+        SampleMesh(), R, level_steps, domain=domain, chunk=chunk)
     with pytest.raises(ValueError):
-        sharded_synth_pipeline(mesh, R, (101, 40), level_steps,
-                               domain=domain, chunk=chunk, interpret=True)
+        step(noise[0][:1001], noise[1][:1001])

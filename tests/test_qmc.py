@@ -92,7 +92,7 @@ def test_uniforms_strictly_inside_01_in_f32():
 
     Regression: keeping 24 bits rounds ``(2^24 - 1) + 0.5`` up to
     ``2^24`` (not representable in f32), yielding u == 1.0 and an inf
-    out of ndtri — hit on the TPU by a real scrambled point.
+    out of ndtri — hit on a device by a real scrambled point.
     """
     extremes = jnp.asarray([0, 1, 2 ** 23, 2 ** 32 - 1, 2 ** 32 - 256],
                            dtype=jnp.uint32)

@@ -33,8 +33,8 @@ from mlmc.quantity.quantity_spec import QuantitySpec as RefQSpec  # noqa: E402
 from mlmc.sample_storage import Memory as RefMemory  # noqa: E402
 
 import mlmc_tpu  # noqa: E402
-import mlmc_tpu.quantity.quantity_estimate as tpu_qe  # noqa: E402
-import mlmc_tpu.tool.simple_distribution as tpu_sd  # noqa: E402
+import mlmc_tpu.quantity.quantity_estimate as dev_qe  # noqa: E402
+import mlmc_tpu.tool.simple_distribution as dev_sd  # noqa: E402
 from mlmc_tpu import Legendre, Memory, QuantitySpec, make_root_quantity  # noqa: E402
 
 N_LEVELS = 3
@@ -90,103 +90,103 @@ def _fill(storage, spec, data, as_object_array=False):
 def both_quantities():
     data = _draw_level_samples(np.random.default_rng(4242))
     ref_storage = _fill(RefMemory(), _q_spec(RefQSpec), data, as_object_array=True)
-    tpu_storage = _fill(Memory(), _q_spec(QuantitySpec), data)
+    dev_storage = _fill(Memory(), _q_spec(QuantitySpec), data)
     ref_root = ref_make_root(ref_storage, _q_spec(RefQSpec))
-    tpu_root = make_root_quantity(tpu_storage, _q_spec(QuantitySpec))
+    dev_root = make_root_quantity(dev_storage, _q_spec(QuantitySpec))
     # scalar view: value @ time 0 @ location -> [1,1] array -> scalar
     ref_scalar = ref_root["value"][0]["spot"][0, 0]
-    tpu_scalar = tpu_root["value"][0]["spot"][0, 0]
-    return ref_scalar, tpu_scalar
+    dev_scalar = dev_root["value"][0]["spot"][0, 0]
+    return ref_scalar, dev_scalar
 
 
 def test_mean_parity(both_quantities):
-    ref_q, tpu_q = both_quantities
+    ref_q, dev_q = both_quantities
     ref_mean = ref_qe.estimate_mean(ref_q)
-    tpu_mean = tpu_qe.estimate_mean(tpu_q)
-    assert np.allclose(ref_mean.mean, np.asarray(tpu_mean.mean), atol=1e-12)
-    assert np.allclose(ref_mean.var, np.asarray(tpu_mean.var), atol=1e-12)
+    dev_mean = dev_qe.estimate_mean(dev_q)
+    assert np.allclose(ref_mean.mean, np.asarray(dev_mean.mean), atol=1e-12)
+    assert np.allclose(ref_mean.var, np.asarray(dev_mean.var), atol=1e-12)
 
 
 def test_moments_parity(both_quantities):
-    ref_q, tpu_q = both_quantities
+    ref_q, dev_q = both_quantities
     ref_m = ref_qe.estimate_mean(ref_qe.moments(ref_q, RefLegendre(R, DOMAIN)))
-    tpu_m = tpu_qe.estimate_mean(tpu_qe.moments(tpu_q, Legendre(R, DOMAIN)))
-    assert np.allclose(ref_m.mean, np.asarray(tpu_m.mean), atol=1e-10)
-    assert np.allclose(ref_m.var, np.asarray(tpu_m.var), atol=1e-10)
+    dev_m = dev_qe.estimate_mean(dev_qe.moments(dev_q, Legendre(R, DOMAIN)))
+    assert np.allclose(ref_m.mean, np.asarray(dev_m.mean), atol=1e-10)
+    assert np.allclose(ref_m.var, np.asarray(dev_m.var), atol=1e-10)
 
 
 def test_covariance_parity(both_quantities):
-    ref_q, tpu_q = both_quantities
+    ref_q, dev_q = both_quantities
     ref_c = ref_qe.estimate_mean(ref_qe.covariance(ref_q, RefLegendre(R, DOMAIN)))
-    tpu_c = tpu_qe.estimate_mean(tpu_qe.covariance(tpu_q, Legendre(R, DOMAIN)))
-    assert np.allclose(ref_c.mean, np.asarray(tpu_c.mean), atol=1e-10)
+    dev_c = dev_qe.estimate_mean(dev_qe.covariance(dev_q, Legendre(R, DOMAIN)))
+    assert np.allclose(ref_c.mean, np.asarray(dev_c.mean), atol=1e-10)
 
 
 def test_orthogonalization_parity(both_quantities):
     """Same covariance -> same threshold, eigenvalues and transform L."""
-    ref_q, tpu_q = both_quantities
+    ref_q, dev_q = both_quantities
     cov_ref = ref_qe.estimate_mean(
         ref_qe.covariance(ref_q, RefLegendre(R, DOMAIN))).mean
-    cov_tpu = np.asarray(tpu_qe.estimate_mean(
-        tpu_qe.covariance(tpu_q, Legendre(R, DOMAIN))).mean)
-    assert np.allclose(cov_ref, cov_tpu, atol=1e-10)
+    cov_dev = np.asarray(dev_qe.estimate_mean(
+        dev_qe.covariance(dev_q, Legendre(R, DOMAIN))).mean)
+    assert np.allclose(cov_ref, cov_dev, atol=1e-10)
 
     ref_orth, ref_info = ref_sd.construct_ortogonal_moments(
         RefLegendre(R, DOMAIN), cov_ref, tol=1e-4)
-    tpu_orth, tpu_info = tpu_sd.construct_ortogonal_moments(
-        Legendre(R, DOMAIN), cov_tpu, tol=1e-4)
+    dev_orth, dev_info = dev_sd.construct_ortogonal_moments(
+        Legendre(R, DOMAIN), cov_dev, tol=1e-4)
 
-    assert ref_info[1] == tpu_info[1]  # threshold
-    assert np.allclose(ref_info[0], tpu_info[0], atol=1e-9)  # eigenvalues
-    L_ref, L_tpu = ref_info[2], tpu_info[2]
-    assert L_ref.shape == L_tpu.shape
+    assert ref_info[1] == dev_info[1]  # threshold
+    assert np.allclose(ref_info[0], dev_info[0], atol=1e-9)  # eigenvalues
+    L_ref, L_dev = ref_info[2], dev_info[2]
+    assert L_ref.shape == L_dev.shape
     # RQ sign conventions may differ per row; the decomposition property
     # and row-wise agreement up to sign must hold exactly
-    assert np.allclose(np.abs(L_ref), np.abs(L_tpu), atol=1e-9)
-    assert np.allclose(L_tpu @ cov_tpu @ L_tpu.T,
-                       np.eye(L_tpu.shape[0]), atol=1e-10)
+    assert np.allclose(np.abs(L_ref), np.abs(L_dev), atol=1e-9)
+    assert np.allclose(L_dev @ cov_dev @ L_dev.T,
+                       np.eye(L_dev.shape[0]), atol=1e-10)
 
     # orthogonalized moment estimates agree (up to the same row signs)
     ref_m = ref_qe.estimate_mean(ref_qe.moments(ref_q, ref_orth)).mean
-    tpu_m = np.asarray(tpu_qe.estimate_mean(tpu_qe.moments(tpu_q, tpu_orth)).mean)
-    signs = np.sign(np.diag(L_ref)) * np.sign(np.diag(L_tpu))
-    assert np.allclose(ref_m, signs * tpu_m, atol=1e-9)
+    dev_m = np.asarray(dev_qe.estimate_mean(dev_qe.moments(dev_q, dev_orth)).mean)
+    signs = np.sign(np.diag(L_ref)) * np.sign(np.diag(L_dev))
+    assert np.allclose(ref_m, signs * dev_m, atol=1e-9)
 
 
 def test_density_parity(both_quantities):
     """Full construct_density chain: both maxent solvers converge to the
     same density (same convex optimum), compared pointwise."""
-    ref_q, tpu_q = both_quantities
+    ref_q, dev_q = both_quantities
 
     cov = ref_qe.estimate_mean(
         ref_qe.covariance(ref_q, RefLegendre(R, DOMAIN))).mean
     ref_orth, _ = ref_sd.construct_ortogonal_moments(
         RefLegendre(R, DOMAIN), cov, tol=1e-4)
-    tpu_orth, _ = tpu_sd.construct_ortogonal_moments(
+    dev_orth, _ = dev_sd.construct_ortogonal_moments(
         Legendre(R, DOMAIN), np.asarray(cov), tol=1e-4)
 
     ref_means = ref_qe.estimate_mean(ref_qe.moments(ref_q, ref_orth)).mean
-    tpu_means = np.asarray(tpu_qe.estimate_mean(
-        tpu_qe.moments(tpu_q, tpu_orth)).mean)
+    dev_means = np.asarray(dev_qe.estimate_mean(
+        dev_qe.moments(dev_q, dev_orth)).mean)
 
     ref_data = np.stack([ref_means, np.ones_like(ref_means)], axis=1)
-    tpu_data = np.stack([tpu_means, np.ones_like(tpu_means)], axis=1)
+    dev_data = np.stack([dev_means, np.ones_like(dev_means)], axis=1)
 
     ref_distr = ref_sd.SimpleDistribution(ref_orth, ref_data,
                                           domain=ref_orth.domain)
     ref_distr.estimate_density_minimize(tol=1e-9)
-    tpu_distr = tpu_sd.SimpleDistribution(tpu_orth, tpu_data,
-                                          domain=tpu_orth.domain)
-    tpu_distr.estimate_density_minimize(tol=1e-9)
+    dev_distr = dev_sd.SimpleDistribution(dev_orth, dev_data,
+                                          domain=dev_orth.domain)
+    dev_distr.estimate_density_minimize(tol=1e-9)
 
     xs = np.linspace(DOMAIN[0] + 0.1, DOMAIN[1] - 0.1, 501)
     pdf_ref = np.asarray(ref_distr.density(xs), dtype=float)
-    pdf_tpu = np.asarray(tpu_distr.density(xs), dtype=float)
-    err = np.max(np.abs(pdf_ref - pdf_tpu))
+    pdf_dev = np.asarray(dev_distr.density(xs), dtype=float)
+    err = np.max(np.abs(pdf_ref - pdf_dev))
     assert err < 5e-6, f"max pdf deviation {err}"
-    kl = tpu_sd.KL_divergence(lambda x: ref_distr.density(x),
-                              lambda x: tpu_distr.density(x), *DOMAIN)
-    assert kl < 1e-9, f"KL(ref || tpu) = {kl}"
+    kl = dev_sd.KL_divergence(lambda x: ref_distr.density(x),
+                              lambda x: dev_distr.density(x), *DOMAIN)
+    assert kl < 1e-9, f"KL(ref || dev) = {kl}"
 
 
 def test_hdf_file_interop_both_directions(tmp_path):
@@ -195,13 +195,13 @@ def test_hdf_file_interop_both_directions(tmp_path):
     (reference sample_storage_hdf.py + tool/hdf5.py schema).
     """
     from mlmc.sample_storage_hdf import SampleStorageHDF as RefHDF
-    from mlmc_tpu import SampleStorageHDF as TpuHDF
+    from mlmc_tpu import SampleStorageHDF as DevHDF
 
     data = _draw_level_samples(np.random.default_rng(77))
 
     # ours -> reference
     ours_path = str(tmp_path / "ours.hdf5")
-    _fill(TpuHDF(file_path=ours_path), _q_spec(QuantitySpec), data)
+    _fill(DevHDF(file_path=ours_path), _q_spec(QuantitySpec), data)
     ref_reader = RefHDF(file_path=ours_path)
     ref_pairs = ref_reader.sample_pairs()
     fmt = ref_reader.load_result_format()
@@ -213,12 +213,12 @@ def test_hdf_file_interop_both_directions(tmp_path):
     ref_path = str(tmp_path / "ref.hdf5")
     _fill(RefHDF(file_path=ref_path), _q_spec(RefQSpec), data,
           as_object_array=True)
-    tpu_reader = TpuHDF(file_path=ref_path)
-    tpu_pairs = tpu_reader.sample_pairs()
-    assert [q.name for q in tpu_reader.load_result_format()] == ["value"]
+    dev_reader = DevHDF(file_path=ref_path)
+    dev_pairs = dev_reader.sample_pairs()
+    assert [q.name for q in dev_reader.load_result_format()] == ["value"]
 
     for lvl, (fine, coarse) in enumerate(data):
-        for pairs in (ref_pairs, tpu_pairs):
+        for pairs in (ref_pairs, dev_pairs):
             chunk = np.asarray(pairs[lvl])      # [M, N, 1|2]
             assert np.allclose(chunk[0, :, 0], fine, atol=0)
             if lvl > 0:

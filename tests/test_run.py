@@ -2,7 +2,7 @@
 
 The reference runs {SynthSimulation, SynthSimulationWorkspace} x
 {Memory, SampleStorageHDF} x {OneProcessPool, ProcessPool(4)} through the
-full target-variance loop. This matrix additionally covers the TPU-native
+full target-variance loop. This matrix additionally covers the device-native
 DeviceBatchPool and the native binary storage: every storage backend
 {Memory, HDF, Bin}, every pool {OneProcessPool, ProcessPool(4),
 DeviceBatchPool} and both simulations appear in the curated combinations
